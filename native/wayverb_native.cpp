@@ -2,12 +2,13 @@
 //
 // The reference implements its host runtime (voxel octree, inside tests,
 // closest-triangle search) in C++ (src/core/spatial_division/*,
-// src/cl/voxel.cpp); this library is the TPU build's native equivalent for
+// src/cl/voxel.cpp); this library is this project's native equivalent for
 // the setup path: a uniform voxel grid accelerator with DDA ray traversal,
 // parity-vote inside classification, and point→triangle surface
-// assignment.  Exposed as a C ABI for ctypes (no pybind11 in this image).
+// assignment.  Exposed as a C ABI for ctypes.
 //
-// Build: see native/build.sh (g++ -O3 -shared -fPIC).
+// Build: wayverb_tpu/utils/native.py compiles it on first use
+// (g++ -O3 -fopenmp -shared -fPIC), keyed on a hash of this file.
 
 #include <algorithm>
 #include <cmath>

@@ -4,6 +4,7 @@ both the primitive queries and a full trace, plus hall-scale physics."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from wayverb_tpu.core.environment import Environment
 from wayverb_tpu.core.geometry import (Box, box_scene, line_of_sight,
@@ -74,56 +75,75 @@ class TestGridQueries:
         assert (dense == grd).mean() > 0.99    # boundary-grazing slack
 
 
-class TestPallasMT:
-    """VMEM-tiled Möller–Trumbore kernel vs the dense oracle."""
+def _hall_rays(n_tris_scale, n, seed, with_exclude):
+    soup, nT = procedural_hall(shell_div=n_tris_scale, n_columns=3,
+                               column_div=2)
+    rng = np.random.RandomState(seed)
+    o = jnp.asarray((rng.uniform(0.1, 0.9, (n, 3))
+                     * np.asarray([20, 8, 15])).astype(np.float32))
+    d = rng.randn(n, 3).astype(np.float32)
+    d = jnp.asarray(d / np.linalg.norm(d, axis=1, keepdims=True))
+    ex = jnp.asarray(rng.randint(-1, nT, n).astype(np.int32)) \
+        if with_exclude else None
+    return soup, o, d, ex
 
-    def test_closest_hit_matches_dense(self):
-        from wayverb_tpu.raytracer.mt_pallas import (build_pallas_triangles,
-                                                     mt_intersection)
-        soup, _ = procedural_hall(shell_div=8, n_columns=3, column_div=2)
-        tris = build_pallas_triangles(soup)
-        box = Box((0, 0, 0), (20.0, 8.0, 15.0))
-        origins, dirs = random_rays_inside(box, 600, jax.random.PRNGKey(2))
-        td, trid, hitd = scene_intersection(origins, dirs, soup)
-        tp, trip, hitp = mt_intersection(origins, dirs, tris,
-                                         interpret=True)
-        np.testing.assert_array_equal(np.asarray(hitp), np.asarray(hitd))
+
+class TestDDAOnHall:
+    """The voxel DDA against the dense broadcast on procedural halls."""
+
+    @pytest.mark.parametrize("shell_div,with_exclude",
+                             [(10, False), (10, True), (14, True)])
+    def test_closest_hit_matches_dense(self, shell_div, with_exclude):
+        soup, o, d, ex = _hall_rays(shell_div, 1024, shell_div,
+                                    with_exclude)
+        grid = build_ray_grid(soup)
+        td, trid, hitd = scene_intersection(o, d, soup, exclude_triangle=ex)
+        tg, trig, hitg = grid_intersection(o, d, grid, soup,
+                                           exclude_triangle=ex)
+        np.testing.assert_array_equal(np.asarray(hitg), np.asarray(hitd))
         m = np.asarray(hitd)
-        np.testing.assert_allclose(np.asarray(tp)[m], np.asarray(td)[m],
+        np.testing.assert_allclose(np.asarray(tg)[m], np.asarray(td)[m],
                                    rtol=1e-5)
-        assert (np.asarray(trip)[m] == np.asarray(trid)[m]).mean() > 0.98
+        assert (np.asarray(trig)[m] == np.asarray(trid)[m]).mean() > 0.98
+        if ex is not None:
+            assert not np.any(np.asarray(trig)[m] == np.asarray(ex)[m])
 
-    def test_exclude_and_padding(self):
-        from wayverb_tpu.raytracer.mt_pallas import (build_pallas_triangles,
-                                                     mt_intersection)
-        soup, _ = procedural_hall(shell_div=6, n_columns=0)
-        tris = build_pallas_triangles(soup)
-        box = Box((0, 0, 0), (20.0, 8.0, 15.0))
-        # R=100: not a multiple of the ray tile (exercises ray padding)
-        origins, dirs = random_rays_inside(box, 100, jax.random.PRNGKey(4))
-        _, tri, hit = mt_intersection(origins, dirs, tris, interpret=True)
-        t2, tri2, hit2 = mt_intersection(origins, dirs, tris,
-                                         exclude_triangle=tri,
-                                         interpret=True)
-        m = np.asarray(hit) & np.asarray(hit2)
-        assert not np.any(np.asarray(tri2)[m] == np.asarray(tri)[m])
+    def test_line_of_sight_with_exclude_matches_dense(self):
+        soup, a, _, ex = _hall_rays(8, 512, 21, True)
+        rng = np.random.default_rng(22)
+        b = jnp.asarray(rng.uniform([1, 1, 1], [19, 7, 14],
+                                    (512, 3)).astype(np.float32))
+        grid = build_ray_grid(soup)
+        dense = np.asarray(line_of_sight(a, b, soup, exclude_triangle=ex))
+        grd = np.asarray(grid_line_of_sight(a, b, grid, soup,
+                                            exclude_triangle=ex))
+        assert (dense == grd).mean() > 0.99    # boundary-grazing slack
 
-    def test_trace_matches_dense(self):
-        from wayverb_tpu.raytracer.mt_pallas import build_pallas_triangles
-        box = Box((0, 0, 0), (5.56, 3.97, 2.81))
-        soup = box_scene(box)
-        tris = build_pallas_triangles(soup)
-        kwargs = dict(num_rays=512, depth=10, max_time=0.6)
-        rd = tracer.trace(soup, surfaces(), (2.1, 2.1, 1.2),
-                          (2.1, 3.0, 0.9), jax.random.PRNGKey(5), **kwargs)
-        rp = tracer.trace(soup, surfaces(), (2.1, 2.1, 1.2),
-                          (2.1, 3.0, 0.9), jax.random.PRNGKey(5),
-                          accel=tris, **kwargs)
-        np.testing.assert_array_equal(np.asarray(rp.triangle_history),
-                                      np.asarray(rd.triangle_history))
-        np.testing.assert_allclose(np.asarray(rp.histogram),
+    def test_trace_on_hall_matches_dense(self):
+        """Same key ⇒ same bounce sequence ⇒ same histogram, through the
+        full stochastic tracer on a hall (not only a box)."""
+        soup, _ = procedural_hall(shell_div=8, n_columns=2)
+        kw = dict(num_rays=256, depth=6, max_time=0.4)
+        args = (soup, surfaces(), (2.0, 1.7, 3.0), (6.0, 1.9, 9.0),
+                jax.random.PRNGKey(3))
+        rd = tracer.trace(*args, **kw)
+        rg = tracer.trace(*args, accel=build_ray_grid(soup), **kw)
+        np.testing.assert_allclose(np.asarray(rg.histogram),
                                    np.asarray(rd.histogram),
-                                   rtol=1e-4, atol=1e-8)
+                                   rtol=1e-4, atol=1e-12)
+
+    @pytest.mark.parametrize("hall", [False, True])
+    def test_auto_accel_choice(self, hall):
+        from wayverb_tpu.raytracer.accel import (DENSE_MAX_TRIS, RayGrid,
+                                                 auto_accel)
+        soup = procedural_hall()[0] if hall \
+            else box_scene(Box((0, 0, 0), (5.0, 4.0, 3.0)))
+        acc = auto_accel(soup)
+        if soup.num_triangles <= DENSE_MAX_TRIS:
+            assert acc is None
+        else:
+            assert isinstance(acc, RayGrid)
+        assert hall == (acc is not None)
 
 
 class TestAcceleratedTrace:
@@ -161,74 +181,3 @@ class TestAcceleratedTrace:
         # ~165 expected sphere crossings at this radius/ray count → ~8%
         # Poisson noise; 25% tolerance ≈ 3σ
         np.testing.assert_allclose(total, expected, rtol=0.25)
-
-
-class TestMortonCulling:
-    """Two-level MT acceleration (Morton tile AABB gate + ray sort)."""
-
-    def test_culled_matches_plain_jnp(self):
-        from wayverb_tpu.raytracer.mt_pallas import (
-            build_pallas_triangles, mt_intersection)
-        from wayverb_tpu.raytracer.scenes import procedural_hall
-        soup, nT = procedural_hall(shell_div=10, n_columns=3)
-        plain = build_pallas_triangles(soup, cull=False)
-        culled = build_pallas_triangles(soup, cull=True)
-        rng = np.random.RandomState(0)
-        R = 1024
-        o = jnp.asarray((rng.uniform(0.1, 0.9, (R, 3))
-                         * np.asarray([20, 8, 15])).astype(np.float32))
-        d = rng.randn(R, 3).astype(np.float32)
-        d /= np.linalg.norm(d, axis=1, keepdims=True)
-        ex = jnp.asarray(rng.randint(-1, nT, R).astype(np.int32))
-        t0, i0, h0 = mt_intersection(o, jnp.asarray(d), plain, ex)
-        t1, i1, h1 = mt_intersection(o, jnp.asarray(d), culled, ex)
-        np.testing.assert_allclose(np.asarray(t0), np.asarray(t1),
-                                   rtol=1e-6)
-        assert np.array_equal(np.asarray(h0), np.asarray(h1))
-        hm = np.asarray(h0)
-        assert np.array_equal(np.asarray(i0)[hm], np.asarray(i1)[hm])
-
-    def test_culled_kernel_interpret(self):
-        """The AABB-gated Pallas kernel (interpret mode) must equal the
-        jnp oracle on the same Morton-sorted data."""
-        from wayverb_tpu.raytracer.mt_pallas import (
-            _jnp_closest, _pallas_closest, build_pallas_triangles)
-        from wayverb_tpu.raytracer.scenes import procedural_hall
-        soup, nT = procedural_hall(shell_div=6, n_columns=2)
-        culled = build_pallas_triangles(soup, cull=True)
-        rng = np.random.RandomState(1)
-        R = 512
-        o = jnp.asarray((rng.uniform(0.2, 0.8, (R, 3))
-                         * np.asarray([20, 8, 15])).astype(np.float32))
-        d = rng.randn(R, 3).astype(np.float32)
-        d /= np.linalg.norm(d, axis=1, keepdims=True)
-        ex = jnp.full((R,), -1, jnp.int32)
-        t_k, i_k = _pallas_closest(o, jnp.asarray(d), ex, culled,
-                                   interpret=True)
-        t_j, i_j = _jnp_closest(o, jnp.asarray(d), ex, culled)
-        np.testing.assert_allclose(np.asarray(t_k), np.asarray(t_j),
-                                   rtol=1e-5)
-        assert np.array_equal(np.asarray(i_k), np.asarray(i_j))
-
-    def test_trace_with_culled_accel(self):
-        """End-to-end stochastic trace through the culled accel deposits
-        the same energy as the plain MT path."""
-        from wayverb_tpu.core.surfaces import Surface
-        from wayverb_tpu.raytracer.mt_pallas import build_pallas_triangles
-        from wayverb_tpu.raytracer.scenes import procedural_hall
-        from wayverb_tpu.raytracer.tracer import trace
-        soup, nT = procedural_hall(shell_div=8, n_columns=2)
-        surfaces = Surface(absorption=jnp.full((1, 8), 0.1),
-                           scattering=jnp.full((1, 8), 0.1))
-        key = jax.random.PRNGKey(3)
-        kw = dict(num_rays=256, depth=6, max_time=0.4)
-        r_plain = trace(soup, surfaces, (2.0, 1.7, 3.0), (6.0, 1.9, 9.0),
-                        key, accel=build_pallas_triangles(soup,
-                                                          cull=False),
-                        **kw)
-        r_cull = trace(soup, surfaces, (2.0, 1.7, 3.0), (6.0, 1.9, 9.0),
-                       key, accel=build_pallas_triangles(soup, cull=True),
-                       **kw)
-        np.testing.assert_allclose(np.asarray(r_cull.histogram),
-                                   np.asarray(r_plain.histogram),
-                                   rtol=1e-4, atol=1e-12)

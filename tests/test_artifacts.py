@@ -1,6 +1,5 @@
-"""Committed validation artifacts: the r4 long-run stability record and
-the boundary-fit sweep (VERDICT r3 next-7/8: the OUTPUT, not just the
-script, must be pinned)."""
+"""Long-run filter-state drift and the committed boundary-fit sweep
+(the sweep's OUTPUT, not just its script, is pinned)."""
 
 import json
 import os
@@ -10,26 +9,49 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-class TestLongrunArtifact:
-    def test_f64_drift_record(self):
-        data = json.load(open(os.path.join(ROOT, "LONGRUN_r04.json")))
-        rec = [d for d in data if d["mode"] == "f64"]
-        assert rec, "f64 long-run record missing"
-        rec = rec[0]
-        assert rec["steps"] >= 10000
-        assert rec["rel_drift"] < rec["bound"] == 2e-3
-        # the committed measurement is far inside the bound — the basis
-        # for shipping f32 filter state where the reference mandates
-        # double (cl/filter_structs.h:14)
-        assert rec["rel_drift"] < 5e-4
-
-    def test_hw_record(self):
-        data = json.load(open(os.path.join(ROOT, "LONGRUN_r04.json")))
-        rec = [d for d in data if d["mode"] == "hw"]
-        assert rec, "hardware long-run record missing"
-        rec = rec[0]
-        assert rec["steps"] >= 10000 and rec["stable"] == 1.0
-        assert rec["tail_peak"] < rec["peak"]
+class TestLongrunDrift:
+    def test_f32_state_drift_vs_f64(self):
+        """f32 vs f64 IIR filter state over a long low-absorption run at a
+        small shape: the receiver trace must stay within the 2e-3 relative
+        bound that justifies shipping f32 state where the reference
+        mandates double (``cl/filter_structs.h:14``)."""
+        import jax
+        jax.config.update("jax_platforms", "cpu")
+        import jax.numpy as jnp
+        from wayverb_tpu.core.geometry import Box
+        from wayverb_tpu.waveguide import run as wgrun
+        from wayverb_tpu.waveguide.descriptor import grid_spacing
+        from wayverb_tpu.waveguide.receivers import NodeReceiver
+        from wayverb_tpu.waveguide.sources import (
+            HardSource, impulse_signal, rectilinear_calibration_factor)
+        fs, steps = 3333.33, 3000
+        dx = grid_spacing(340.0, 1.0 / fs)
+        box = Box((0, 0, 0), (dx * 12, dx * 10, dx * 14))
+        mesh = wgrun.shoebox_mesh(box, np.full((1, 8), 0.05), dx, fs)
+        desc = mesh.descriptor
+        centre = np.asarray(box.centre())
+        src = mesh.require_inside(tuple(centre))
+        rcv = mesh.require_inside(tuple(centre + [0.0, 0.0, 3 * dx]))
+        source = HardSource(
+            node_idx=jnp.asarray(desc.flat_index(src), dtype=jnp.int32),
+            signal=impulse_signal(steps, rectilinear_calibration_factor(
+                dx, 400.0)))
+        receiver = NodeReceiver(
+            node_idx=jnp.asarray(desc.flat_index(rcv), dtype=jnp.int32))
+        with jax.enable_x64(True):
+            o32 = wgrun.run_waveguide_box(mesh.structure, mesh.box_spec,
+                                          source, receiver, steps)
+            o64 = wgrun.run_waveguide_box(mesh.structure, mesh.box_spec,
+                                          source, receiver, steps,
+                                          state_dtype=jnp.float64)
+            p32 = np.asarray(o32["outputs"])
+            p64 = np.asarray(o64["outputs"])
+        assert bool(o32["stable"]) and bool(o64["stable"])
+        assert p64.dtype == np.float32     # field stays f32; state widens
+        # the run must actually ring: a late-window signal to drift in
+        assert np.abs(p64[-steps // 10:]).max() > 0.0
+        rel = np.abs(p32 - p64).max() / np.abs(p64).max()
+        assert rel < 2e-3
 
 
 class TestBoundaryFitArtifact:
@@ -63,24 +85,3 @@ class TestBoundaryFitArtifact:
         err = float(np.max(np.abs(got - target)))
         np.testing.assert_allclose(err, row["max_inband_r_error"],
                                    rtol=1e-5, atol=1e-7)
-
-
-class TestMegaCheckArtifact:
-    """MEGA_CHECK_r05.json: on-hardware mega-kernel parity + FD gradient
-    sanity at the flagship 224x224x256 (tools/bench/mega_check.py).  The
-    CPU suite only runs the mega kernel in interpret mode at toy shapes;
-    this artifact is the committed evidence the REAL Mosaic kernels are
-    correct at production scale (VERDICT r4 #5)."""
-
-    def test_bounds_hold(self):
-        path = os.path.join(ROOT, "MEGA_CHECK_r05.json")
-        with open(path) as fh:
-            d = json.load(fh)
-        assert d["shape"] == [224, 224, 256]
-        par = d["forward_parity_rel_maxabs"]
-        assert par["stable"]
-        assert par["intensity"] <= d["bounds"]["forward_rel"]
-        assert par["pressure"] <= d["bounds"]["forward_rel"]
-        top = max(d["grad_fd"], key=lambda g: abs(g["grad"]))
-        assert abs(top["grad"]) > 0.0
-        assert top["rel_err"] <= d["bounds"]["grad_rel_top"]

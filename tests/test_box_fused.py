@@ -1,5 +1,5 @@
-"""Fused plane-boundary path: parity with the general gather path, Pallas
-kernel parity in interpret mode, and hand-written VJP correctness."""
+"""Fused plane-boundary path: parity with the general weight-code path,
+hand-written VJP correctness, and the shard decomposition contract."""
 
 import dataclasses
 
@@ -117,6 +117,10 @@ class TestFusedParity:
                                        atol=1e-5)
 
 
+# one tile-friendly shape and one with no dimension a multiple of 8
+STEP_DIMS = [(16, 16, 128), (14, 11, 13)]
+
+
 def _random_problem(rng, dims=(16, 16, 128)):
     inside = np.zeros(dims, dtype=bool)
     inside[2:-2, 2:-2, 2:-2] = True
@@ -135,27 +139,13 @@ def _inner_weights(rng, spec):
         for p in range(6))
 
 
-class TestPallasKernel:
-    def test_interpret_matches_jnp(self, rng):
-        from wayverb_tpu.waveguide.box_fused import _jnp_forward
-        spec, cur, prev, planes = _random_problem(rng)
-        geom = spec.geom_array()
-        ref, ref_inner = _jnp_forward(geom, cur, prev, planes)
-        out, inner = fused_step(spec, geom, cur, prev, planes,
-                                interpret=True)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                                   atol=1e-5)
-        for got, want in zip(inner, ref_inner):
-            np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                       atol=1e-5)
-
-    @pytest.mark.parametrize("interpret", [True, False])
-    def test_custom_vjp_matches_jnp_autodiff(self, rng, interpret):
+class TestFusedStep:
+    @pytest.mark.parametrize("dims", STEP_DIMS)
+    def test_custom_vjp_matches_jnp_autodiff(self, rng, dims):
         """The hand VJP (writer-precedence plane masks + one-hot inner-plane
-        placement + halo rows) must equal autodiff of the pure-jnp forward,
-        on both the interpreted Pallas backward and the jnp backward."""
+        placement + halo rows) must equal autodiff of the plain forward."""
         from wayverb_tpu.waveguide.box_fused import _jnp_forward
-        spec, cur, prev, planes = _random_problem(rng)
+        spec, cur, prev, planes = _random_problem(rng, dims)
         geom = spec.geom_array()
         g = jnp.asarray(rng.normal(size=cur.shape).astype(np.float32))
         wi = _inner_weights(rng, spec)
@@ -171,7 +161,7 @@ class TestPallasKernel:
 
         def loss_custom(cur, prev, planes, halos):
             return weighted(fused_step(spec, geom, cur, prev, planes,
-                                       halos=halos, interpret=interpret))
+                                       halos=halos))
 
         def loss_ref(cur, prev, planes, halos):
             return weighted(_jnp_forward(geom, cur, prev, planes,
@@ -186,18 +176,17 @@ class TestPallasKernel:
             np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                        atol=1e-4)
 
-    @pytest.mark.parametrize("interpret", [True, False])
-    def test_sharded_halves_match_full(self, rng, interpret):
+    @pytest.mark.parametrize("dims", STEP_DIMS)
+    def test_sharded_halves_match_full(self, rng, dims):
         """Running the step on two x-halves with geom offsets + exchanged
         halo rows must reproduce the full-grid step exactly (the shard_map
         decomposition contract)."""
-        from wayverb_tpu.waveguide.box_fused import _jnp_forward
-        spec, cur, prev, planes = _random_problem(rng)
+        spec, cur, prev, planes = _random_problem(rng, dims)
         X = cur.shape[0]
         XL = X // 2
 
         full_out, full_inner = fused_step(spec, spec.geom_array(), cur,
-                                          prev, planes, interpret=interpret)
+                                          prev, planes)
 
         pxlo, pxhi, pylo, pyhi, pzlo, pzhi = planes
         halves_out, halves_inner = [], []
@@ -212,7 +201,7 @@ class TestPallasKernel:
                 else jnp.zeros_like(cur[:1])
             out, inner = fused_step(
                 spec, geom, cur[off:off + XL], prev[off:off + XL],
-                local_planes, halos=(hlo, hhi), interpret=interpret)
+                local_planes, halos=(hlo, hhi))
             halves_out.append(out)
             halves_inner.append(inner)
 
@@ -231,6 +220,80 @@ class TestPallasKernel:
             np.testing.assert_allclose(np.asarray(got),
                                        np.asarray(full_inner[p]),
                                        atol=1e-5)
+
+
+class TestTritonStepInterpret:
+    """The GPU step kernel (Pallas, Triton route) run by the interpreter
+    against the XLA expression it replaces on the card."""
+
+    @pytest.mark.parametrize("dims", STEP_DIMS)
+    @pytest.mark.parametrize("mode", [0, 1, 2])
+    def test_matches_jnp_forward(self, rng, dims, mode):
+        from wayverb_tpu.waveguide.box_fused import _jnp_forward
+        from wayverb_tpu.waveguide.box_triton import fused_field
+        spec, cur, prev, planes = _random_problem(rng, dims)
+        halos = tuple(
+            jnp.asarray(rng.normal(
+                size=(1,) + cur.shape[1:]).astype(np.float32))
+            for _ in range(2))
+        inj = np.asarray([spec.ilo[0], spec.ilo[1] + 1, spec.ihi[2], mode],
+                         np.int32)
+        val = np.asarray([0.7, -0.3], np.float32)
+        geom = spec.geom_array(x_offset=0)
+        want, _ = _jnp_forward(geom, cur, prev, planes, inj, val, halos)
+        got = fused_field(geom, cur, prev, planes, inj, val, halos,
+                          interpret=True)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   atol=1e-5)
+
+
+class TestKernelChoice:
+    """Which step each platform compiles: lowering for CUDA (no card
+    needed) must emit the Triton kernel, under vmap and grad too; the CPU
+    lowering keeps the XLA expression."""
+
+    @pytest.mark.parametrize("platform,variant", [
+        ("cuda", "plain"), ("cuda", "vmap"), ("cuda", "grad"),
+        ("cpu", "plain")])
+    def test_lowering(self, rng, platform, variant):
+        spec, cur, prev, planes = _random_problem(rng, (16, 16, 128))
+        geom = spec.geom_array()
+
+        def step(c, p):
+            return fused_step(spec, geom, c, p, planes)[0]
+
+        if variant == "vmap":
+            fn = jax.vmap(step)
+            args = (jnp.stack([cur, cur]), jnp.stack([prev, prev]))
+        elif variant == "grad":
+            fn = jax.grad(lambda c, p: jnp.sum(step(c, p) ** 2))
+            args = (cur, prev)
+        else:
+            fn, args = step, (cur, prev)
+        text = jax.jit(fn).trace(*args).lower(
+            lowering_platforms=(platform,)).as_text()
+        assert ("box_fused_step" in text) == (platform == "cuda")
+
+    def test_shard_map_keeps_xla_step(self, rng):
+        """Under shard_map (checked varying axes) the CUDA lowering keeps
+        the XLA step: Pallas cannot trace refs that carry a mesh axis."""
+        from jax.sharding import PartitionSpec as P
+
+        from wayverb_tpu.parallel.sharding import make_device_mesh
+        spec, cur, prev, planes = _random_problem(rng, (16, 16, 128))
+        xl = 8
+        local = planes[:2] + tuple(p[:xl] for p in planes[2:])
+
+        def body(c, p):
+            geom = spec.geom_array(x_offset=jax.lax.axis_index("x") * xl)
+            return fused_step(spec, geom, c, p, local)[0]
+
+        fn = jax.shard_map(body, mesh=make_device_mesh(2),
+                           in_specs=(P("x"), P("x")), out_specs=P("x"),
+                           check_vma=True)
+        text = jax.jit(fn).trace(cur, prev).lower(
+            lowering_platforms=("cuda",)).as_text()
+        assert "box_fused_step" not in text
 
 
 class TestInjectionSemantics:
@@ -362,3 +425,145 @@ class TestPlaneStep:
             assert float(jnp.abs(p).max()) == 0.0
         for s in new_states:
             assert float(jnp.abs(s).max()) == 0.0
+
+
+def _node_receiver(desc, loc):
+    from wayverb_tpu.waveguide.receivers import NodeReceiver
+    return NodeReceiver(
+        node_idx=jnp.asarray(desc.flat_index(tuple(loc)), dtype=jnp.int32))
+
+
+class TestBoxVsGeneral:
+    """The fused box path against the general weight-code path on the same
+    shoebox mesh: sources on every inner plane, odd step counts, soft and
+    hard sources, directional capture and material gradients."""
+
+    def test_whole_run_directional(self):
+        from wayverb_tpu.waveguide.receivers import \
+            make_directional_receiver
+        from wayverb_tpu.waveguide.sources import (
+            HardSource, impulse_signal, rectilinear_calibration_factor)
+        _, mesh = small_box_mesh()
+        desc = mesh.descriptor
+        steps = 16
+        src_loc = mesh.require_inside((0.7, 0.8, 0.5))
+        rcv_loc = mesh.require_inside((0.7, 0.8, 1.3))
+        amp = rectilinear_calibration_factor(desc.spacing,
+                                             ENV.acoustic_impedance)
+        source = HardSource(
+            node_idx=jnp.asarray(desc.flat_index(src_loc), dtype=jnp.int32),
+            signal=impulse_signal(steps, amp))
+        fs = desc.sample_rate(ENV.speed_of_sound)
+        receiver = make_directional_receiver(desc, fs, ENV.ambient_density,
+                                             desc.position(rcv_loc))
+        box = wgrun.run_waveguide_box(mesh.structure, mesh.box_spec,
+                                      source, receiver, steps)
+        gen = wgrun.run_waveguide(mesh.structure, desc.dimensions, source,
+                                  receiver, steps)
+        for a, b in zip(box["outputs"], gen["outputs"]):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       atol=2e-5)
+        assert bool(box["stable"]) and bool(gen["stable"])
+
+    def test_odd_step_count_soft_source(self):
+        from wayverb_tpu.waveguide.sources import SoftSource, impulse_signal
+        _, mesh = small_box_mesh()
+        desc = mesh.descriptor
+        steps = 11
+        src_loc = mesh.require_inside((0.7, 0.8, 0.5))
+        rcv_loc = mesh.require_inside((0.7, 0.8, 1.3))
+        source = SoftSource(
+            node_idx=jnp.asarray(desc.flat_index(src_loc), dtype=jnp.int32),
+            signal=impulse_signal(steps, 2.0))
+        receiver = _node_receiver(desc, rcv_loc)
+        box = wgrun.run_waveguide_box(mesh.structure, mesh.box_spec,
+                                      source, receiver, steps)
+        gen = wgrun.run_waveguide(mesh.structure, desc.dimensions, source,
+                                  receiver, steps)
+        np.testing.assert_allclose(np.asarray(box["outputs"]),
+                                   np.asarray(gen["outputs"]), atol=2e-5)
+
+    @pytest.mark.parametrize("axis", [0, 1, 2])
+    @pytest.mark.parametrize("side", [0, 1])
+    def test_source_on_inner_plane(self, axis, side):
+        """A source ON an inner boundary plane must be mirrored into the
+        carried inner planes before the boundary update (the z planes are
+        narrower than the stacked plane width)."""
+        from wayverb_tpu.waveguide.sources import SoftSource, impulse_signal
+        _, mesh = small_box_mesh()
+        desc = mesh.descriptor
+        spec = mesh.box_spec
+        steps = 10
+        loc = [(spec.ilo[a] + spec.ihi[a]) // 2 for a in range(3)]
+        loc[axis] = spec.ilo[axis] if side == 0 else spec.ihi[axis]
+        rcv = [(spec.ilo[a] + spec.ihi[a]) // 2 for a in range(3)]
+        rcv[2] += 2
+        source = SoftSource(
+            node_idx=jnp.asarray(desc.flat_index(tuple(loc)),
+                                 dtype=jnp.int32),
+            signal=impulse_signal(steps, 1.5))
+        receiver = _node_receiver(desc, rcv)
+        box = wgrun.run_waveguide_box(mesh.structure, spec, source,
+                                      receiver, steps)
+        gen = wgrun.run_waveguide(mesh.structure, desc.dimensions, source,
+                                  receiver, steps)
+        np.testing.assert_allclose(np.asarray(box["outputs"]),
+                                   np.asarray(gen["outputs"]), atol=2e-5)
+
+    def test_material_gradients_match(self):
+        """coef_b / coef_a gradients through the box path's hand VJPs equal
+        those through the general path's weight-code VJP."""
+        from wayverb_tpu.waveguide.sources import HardSource, impulse_signal
+        _, mesh = small_box_mesh()
+        desc = mesh.descriptor
+        steps = 12
+        src_loc = mesh.require_inside((0.7, 0.8, 0.5))
+        rcv_loc = mesh.require_inside((0.7, 0.8, 1.3))
+        source = HardSource(
+            node_idx=jnp.asarray(desc.flat_index(src_loc), dtype=jnp.int32),
+            signal=impulse_signal(steps, 3.0))
+        receiver = _node_receiver(desc, rcv_loc)
+
+        def loss(coef_b, coef_a, box):
+            structure = dataclasses.replace(mesh.structure, coef_b=coef_b,
+                                            coef_a=coef_a)
+            if box:
+                out = wgrun.run_waveguide_box(structure, mesh.box_spec,
+                                              source, receiver, steps)
+            else:
+                out = wgrun.run_waveguide(structure, desc.dimensions,
+                                          source, receiver, steps)
+            return jnp.sum(out["outputs"] ** 2)
+
+        args = (mesh.structure.coef_b, mesh.structure.coef_a)
+        gb = jax.grad(lambda b, a: loss(b, a, True), argnums=(0, 1))(*args)
+        gg = jax.grad(lambda b, a: loss(b, a, False), argnums=(0, 1))(*args)
+        for a, b in zip(gb, gg):
+            a, b = np.asarray(a), np.asarray(b)
+            scale = np.max(np.abs(b)) + 1e-30
+            assert np.max(np.abs(a - b)) / scale < 1e-4
+
+
+class TestSeqTapView:
+    def test_replay_matches_direct_tap(self):
+        """Replaying a receiver over its pre-gathered tap nodes (what the
+        sharded solvers do after one psum) equals tapping the full field."""
+        from wayverb_tpu.waveguide.receivers import (SeqTapView,
+                                                     make_directional_receiver)
+        _, mesh = small_box_mesh()
+        desc = mesh.descriptor
+        rcv_loc = mesh.require_inside((0.7, 0.8, 1.3))
+        fs = desc.sample_rate(ENV.speed_of_sound)
+        receiver = make_directional_receiver(desc, fs, ENV.ambient_density,
+                                             desc.position(rcv_loc))
+        nodes = np.asarray(receiver.tap_nodes())
+        fields = np.random.RandomState(1).randn(
+            5, desc.num_nodes).astype(np.float32)
+        s_view = s_full = receiver.init_state()
+        for t in range(5):
+            s_view, got = receiver.tap(SeqTapView(jnp.asarray(
+                fields[t, nodes])), s_view)
+            s_full, want = receiver.tap(jnp.asarray(fields[t]), s_full)
+            for a, b in zip(got, want):
+                np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                           rtol=1e-6)

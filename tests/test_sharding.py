@@ -87,7 +87,7 @@ class TestShardedWaveguide:
 @pytest.fixture(scope="module")
 def aligned_mesh():
     """Shoebox mesh whose x dim is padded to a multiple of 8 so it divides
-    over 2/4/8 shards (on TPU the descriptor aligns automatically)."""
+    over 2/4/8 shards (``Engine`` pads x to the device count itself)."""
     from wayverb_tpu.core.geometry import box_scene
     box = Box((0, 0, 0), (2.0, 2.5, 3.0))
     return wgrun.compute_mesh(box_scene(box), np.full((1, 8), 0.1), DX, FS,

@@ -1,6 +1,6 @@
-"""wayverb_tpu — a TPU-native differentiable hybrid room-acoustics renderer.
+"""wayverb_tpu — a differentiable hybrid room-acoustics renderer in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference C++/OpenCL implementation (reuk/wayverb, see SURVEY.md):
 
 * ``wayverb_tpu.core``        — scene/geometry/surface/acoustics math
@@ -8,7 +8,7 @@ reference C++/OpenCL implementation (reuk/wayverb, see SURVEY.md):
 * ``wayverb_tpu.imagesource`` — deterministic early reflections (exact shoebox
                                 lattice + arbitrary-geometry path validation)
 * ``wayverb_tpu.raytracer``   — stochastic energy ray tracer (on-device scan)
-* ``wayverb_tpu.waveguide``   — rectilinear FDTD mesh (Pallas stencil + scan)
+* ``wayverb_tpu.waveguide``   — rectilinear FDTD mesh (fused stencil + scan)
 * ``wayverb_tpu.combined``    — hybrid crossover engine
 * ``wayverb_tpu.parallel``    — sharding: grid domain decomposition + ray DP
 

@@ -100,17 +100,14 @@ class Engine:
         self.device_mesh = device_mesh
         spacing = grid_spacing(environment.speed_of_sound,
                                1.0 / waveguide_params.sample_rate)
-        align = "auto"
+        align = None
         if device_mesh is not None:
-            from wayverb_tpu.waveguide.descriptor import default_alignment
             n = int(np.prod(list(device_mesh.shape.values())))
-            base = default_alignment() or (1, 1, 1)
-            align = (int(np.lcm(n, base[0])), base[1], base[2])
+            align = (n, 1, 1)
         self.mesh = wgrun.compute_mesh(
             soup, np.asarray(surfaces.absorption), spacing,
             waveguide_params.sample_rate, scene_box=scene_box, align=align)
-        # platform-aware ray acceleration: MT Pallas kernel on TPU, voxel
-        # DDA off-TPU, dense broadcast for tiny scenes (accel.auto_accel)
+        # voxel DDA, or the dense broadcast for tiny scenes
         from wayverb_tpu.raytracer.accel import auto_accel
         self.ray_grid = auto_accel(soup)
 

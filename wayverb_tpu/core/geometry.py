@@ -1,10 +1,10 @@
 """Batched geometric primitives: rays, triangles, boxes.
 
-TPU-first design: everything is vectorized over a rays axis and a triangles
-axis simultaneously (an ``(R, T)`` broadcast), so ray-scene queries become a
-handful of large fused elementwise ops — no per-ray loops, no octree pointer
-chasing on the hot path.  A voxel accelerator exists for the CPU-side setup
-path in ``wayverb_tpu.core.voxel``.
+Accelerator-first design: everything is vectorized over a rays axis and a
+triangles axis simultaneously (an ``(R, T)`` broadcast), so ray-scene queries
+become a handful of large fused elementwise ops — no per-ray loops, no octree
+pointer chasing on the hot path.  A voxel accelerator exists for the CPU-side
+setup path in ``wayverb_tpu.core.voxel``.
 
 Parity: reference ``core/geo/*`` and ``core/src/cl/geometry.cpp`` (ray/tri
 intersection, mirror, inside-by-parity with fixed random ray directions),

@@ -1,7 +1,7 @@
 """Impulse batches: the common currency between the geometric solvers and IR
 assembly.
 
-A batch is struct-of-arrays (TPU-first: everything vectorizes over the
+A batch is struct-of-arrays (accelerator-first: everything vectorizes over the
 impulse axis): ``volume`` (N, bands) per-band pressure/energy, ``position``
 (N, 3), ``distance`` (N,) path length in metres.  Masked-out entries carry
 zero volume (static shapes instead of the reference's dynamic vectors).

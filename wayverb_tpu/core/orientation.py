@@ -59,7 +59,10 @@ class Orientation:
 
     def transform(self, v):
         """Rotate world vectors (..., 3) into the local frame."""
-        return v @ self.matrix().T
+        # HIGHEST: a GPU may run an f32 matmul in TF32 (~3 digits), which
+        # would move directions across capsule/HRTF bin edges
+        return jnp.matmul(v, self.matrix().T,
+                          precision=jax.lax.Precision.HIGHEST)
 
 
 def angle_lut_indices(v, num_az: int, num_el: int):

@@ -5,7 +5,7 @@ mirrors the source i times in x, j in y, k in z; angle-dependent wall
 reflectance accumulates per axis.  This doubles as the validation oracle for
 the general-geometry image-source machinery, exactly as in the reference.
 
-TPU-first: the whole lattice is one (L, 3) batch — per-image attenuation is
+Vectorized: the whole lattice is one (L, 3) batch — per-image attenuation is
 a closed-form power, no recursion.  Differentiable w.r.t. source/receiver
 positions and surface absorption.
 

@@ -1,13 +1,11 @@
 """Multi-chip shoebox waveguide: the FUSED solver under shard_map.
 
-Round 3 decomposed the grid along x and ran the fused Pallas step
+Round 3 decomposed the grid along x and ran the fused step
 (box_fused.fused_step) per shard with halo ppermutes — but kept the
 O(n²) boundary-plane update REPLICATED, psum-ing the full (6, Umax,
-Vmax) inner-plane stack every step (~1.4 MB at 224³, and at the
-weak-scaling bench's (16, 48, 128) per-shard block the replicated plane
-update is ~100% extra elementwise work per shard).  VERDICT r3 measured
-0.72 weak-scaling efficiency against the ≥0.85 bar and named this the
-structural limiter.
+Vmax) inner-plane stack every step (~1.4 MB at 224³; at a (16, 48, 128)
+per-shard block the replicated plane update is ~100% extra elementwise
+work per shard) — the structural limiter on weak scaling.
 
 Round 4 shards the plane update itself:
 
@@ -16,7 +14,7 @@ Round 4 shards the plane update itself:
    (xl, V) rows, with a one-row ppermute halo for the in-plane u shift —
    the plane subsystem now weak-scales like the field.
  * the two x planes (O(Y·Z), not x-decomposable) stay replicated; their
-   inputs are one masked psum of the owner shard's kernel-extracted
+   inputs are one masked psum of the owner shard's step-extracted
    inner plane (2·Y·Z·4 B) plus an 8 KB psum of the cross-plane coupling
    lines at the two x-end rows.
  * per-step collective payload drops from ~1.9 MB to ~0.93 MB at 224³
@@ -193,8 +191,8 @@ def _plane_rows_update(spec, pi, u, v, pl_p, s_um, s_up, in_p, prev_p,
     only); ``yz_col(qi, pc) -> (R,)``: opposite-type y/z plane m₀ column
     at this plane's own coordinate.
 
-    Same equations as box_mega.plane_step_one (program.cpp:331-388 +
-    canonical DF2T).  Returns ``(new_p, newst)``.
+    Same equations as box_fused.plane_boundary_step_stacked
+    (program.cpp:331-388 + canonical DF2T).  Returns ``(new_p, newst)``.
     """
     X, Y, Z = spec.dims
     a, side = PLANES[pi]
@@ -277,11 +275,11 @@ def plane_step_sharded(spec, off, xl,
     (order, 4, xl, Vmax); ``halo_lo``/``halo_hi``: (4, 1, Vmax) neighbour
     rows of ``pl_yz`` for the in-plane u shift.
 
-    Same equations as box_mega.plane_step_one (program.cpp:331-388 +
-    canonical DF2T), with the cross-plane coupling lines routed per the
-    sharded layout: x-plane m₀ lines are replicated; y/z m₀ rows at the
-    two x-end coordinates live on the x-end owner shards; y/z↔y/z
-    column lines are row-local.
+    Same equations as box_fused.plane_boundary_step_stacked
+    (program.cpp:331-388 + canonical DF2T), with the cross-plane coupling
+    lines routed per the sharded layout: x-plane m₀ lines are replicated;
+    y/z m₀ rows at the two x-end coordinates live on the x-end owner
+    shards; y/z↔y/z column lines are row-local.
     """
     X, Y, Z = spec.dims
     Vmax = pl_yz.shape[-1]
@@ -413,20 +411,12 @@ def run_waveguide_box_sharded(device_mesh: Mesh, structure, spec, source,
                               receiver, num_steps: int,
                               dtype=jnp.float32, state_dtype=None,
                               axis_name: Optional[str] = None,
-                              fake_collectives: bool = False,
                               band_stacks=None) -> dict:
     """Sharded equivalent of run.run_waveguide_box (same outputs contract).
 
     ``device_mesh``: 1-D jax.sharding.Mesh; the grid x axis divides over
-    it.  Requires ``spec.dims[0] % n == 0`` (descriptor alignment pads x
-    to tile multiples; pick meshes whose x dim divides, e.g. pad to n·8).
-
-    ``fake_collectives``: BENCHMARK-ONLY control — replaces the per-step
-    ppermute/psum payloads with local zeros/identity so the identical
-    partitioned program runs with zero communication.  The OUTPUT IS
-    PHYSICALLY WRONG; it exists so weak-scaling sweeps on virtual CPU
-    devices can measure the host's parallelism ceiling for this exact
-    program and divide it out (tools/bench/weak_scaling.py).
+    it.  Requires ``spec.dims[0] % n == 0`` (``Engine`` pads x to a
+    multiple of the device count).
 
     ``band_stacks``: optional ``(coef_b, coef_a)`` PER-BAND material
     tables, each (bands, S, order+1) — the whole solve then vmaps over
@@ -490,7 +480,7 @@ def run_waveguide_box_sharded(device_mesh: Mesh, structure, spec, source,
         def exchange(cur, pl_yz):
             """ONE ppermute pair: the field edge row (post-injection)
             and the four y/z plane-halo rows ride together."""
-            if n > 1 and not fake_collectives:
+            if n > 1:
                 send_dn = jnp.concatenate(
                     [cur[-1:].reshape(1, -1),
                      pl_yz[:, -1:, :].reshape(1, -1)], axis=1)
@@ -522,10 +512,9 @@ def run_waveguide_box_sharded(device_mesh: Mesh, structure, spec, source,
             # and non-owner shards' x-plane state is identically zero.
             if tap_nodes is not None:
                 tv = local_taps(cur_flat)
-                tap_vals = (tv if fake_collectives
-                            else jax.lax.psum(tv, axis_name))
-                from wayverb_tpu.waveguide.box_mega import _SeqTapView
-                return receiver.tap(_SeqTapView(tap_vals), rstate)
+                tap_vals = jax.lax.psum(tv, axis_name)
+                from wayverb_tpu.waveguide.receivers import SeqTapView
+                return receiver.tap(SeqTapView(tap_vals), rstate)
             view = _ShardView(cur_flat, off, xl, dims, axis_name)
             return receiver.tap(view, rstate)
 
@@ -707,8 +696,7 @@ def run_waveguide_box_sharded(device_mesh: Mesh, structure, spec, source,
         # replicates the verdict across shards
         bad = (1 - carry[4].astype(jnp.int32)) + \
             (1 - jnp.all(jnp.isfinite(carry[0])).astype(jnp.int32))
-        stable = (bad == 0 if fake_collectives
-                  else jax.lax.psum(bad, axis_name) == 0)
+        stable = jax.lax.psum(bad, axis_name) == 0
         return outputs, stable
 
     if band_stacks is not None:
@@ -722,7 +710,7 @@ def run_waveguide_box_sharded(device_mesh: Mesh, structure, spec, source,
     fn = shard_map(body, mesh=device_mesh,
                    in_specs=(P(), P(), P(), P()),
                    out_specs=(P(), P()),
-                   check_vma=not fake_collectives)
+                   check_vma=True)
     outputs, stable = fn(face_b, face_a, source, receiver)
     return {"outputs": outputs, "stable": stable}
 

@@ -35,8 +35,10 @@ def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
                local_device_ids=None) -> None:
-    """jax.distributed.initialize with pass-through defaults (TPU pods
-    auto-discover all three parameters from the environment)."""
+    """jax.distributed.initialize with pass-through defaults (on a cluster
+    that JAX knows, all three parameters come from the environment; on
+    one GPU host pass ``coordinator_address`` = ``localhost:<port>``,
+    ``num_processes`` and ``process_id``)."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address

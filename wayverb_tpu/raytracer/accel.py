@@ -5,7 +5,7 @@ The reference marches a voxel grid per ray inside its OpenCL kernels
 intersection); round 1/2 intersected every ray against every triangle
 (O(R·T) broadcast, fine for 12-triangle shoeboxes, hopeless for halls).
 
-TPU-native redesign: an Amanatides–Woo DDA over ALL rays at once inside a
+Here: an Amanatides–Woo DDA over ALL rays at once inside a
 ``lax.while_loop`` — each iteration gathers the (padded, fixed-K) triangle
 list of every ray's current cell, runs one batched Möller–Trumbore over the
 (R, K) block, and advances the not-yet-done rays to their next cell.  Work
@@ -30,6 +30,13 @@ import numpy as np
 
 from wayverb_tpu.core.geometry import (EPSILON, TriangleSoup,
                                        ray_triangle_intersection)
+
+# Scenes up to this many triangles trace with the dense broadcast
+# (``auto_accel``).  On an H100 (2¹⁶ rays × 40 bounces,
+# tools/bench/accel_crossover.py) the dense broadcast is 13× the DDA at 12
+# triangles, 1.8× at 1,092, 1.13× at 2,376, and 0.97× at 5,448: the two
+# cross near 4-5k triangles (PERF.md).
+DENSE_MAX_TRIS = 4096
 
 
 @jax.tree_util.register_pytree_node_class
@@ -204,24 +211,13 @@ def grid_line_of_sight(start, end, grid: RayGrid, soup: TriangleSoup,
 
 
 def auto_accel(soup: TriangleSoup):
-    """Best intersection backend for this scene on this platform.
+    """Intersection backend for this scene: None (the dense (R, T)
+    broadcast) for tiny scenes, the voxel DDA above ``DENSE_MAX_TRIS``.
 
-    Tiny scenes (shoeboxes) stay on the dense (R, T) broadcast — it is
-    exact, fuses well, and beats any structure below ~100 triangles.  On
-    TPU large scenes use the VMEM-tiled Möller–Trumbore Pallas kernel
-    (mt_pallas.py — ~8x the dense broadcast, ~45x the gather-bound DDA at
-    5k triangles); above mt_pallas.CULL_MIN_TRIS the builder adds the
-    Morton-tile AABB culling stage (ray sort + per-tile slab gate):
-    measured r5 on v5e, 1.21e6 rays/s at a 97k-triangle hall vs 3.5e6 at
-    5.4k — a 2.9× drop for 17.8× the triangles (sub-linear, but not
-    T-independent like the reference's voxel walk).  Off-TPU the
-    voxel DDA wins (gathers are cheap on CPU, and the DDA does
-    asymptotically less work).
+    The dense broadcast is exact and fuses well, but its work and its
+    (R, T) intermediates grow with the triangle count; the DDA visits only
+    the voxels a ray crosses (reference ``cl/voxel.cpp:197-258``).
     """
-    if soup.num_triangles <= 100:
+    if soup.num_triangles <= DENSE_MAX_TRIS:
         return None
-    from wayverb_tpu.raytracer.mt_pallas import (build_pallas_triangles,
-                                                 use_pallas)
-    if use_pallas():
-        return build_pallas_triangles(soup)
     return build_ray_grid(soup)

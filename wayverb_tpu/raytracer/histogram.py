@@ -5,7 +5,7 @@ Two deposit modes (parity: reference ``raytracer/histogram.h``):
  * windowed sinc — fu2015 §2.2.2 band-limited deposit over a 400-sample
    Hann-windowed sinc (pressure IRs from the image-source solver).
 
-TPU-first: one scatter-add over an (N, W) window instead of the reference's
+Vectorized: one scatter-add over an (N, W) window instead of the reference's
 per-impulse CPU loops; out-of-range samples drop via scatter mode, and
 masked impulses (zero volume) contribute nothing, keeping shapes static
 under jit.  Differentiable in volumes and (for sinc) in times.

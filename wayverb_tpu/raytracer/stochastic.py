@@ -10,7 +10,7 @@ and ``stochastic/postprocess.h``):
     matches the histogram (pressure = √(E/Σδ²·Z)),
  4. multiband filter + mixdown.
 
-TPU-first: the dirac sequence is per-sample Bernoulli thinning of the
+Vectorized: the dirac sequence is per-sample Bernoulli thinning of the
 inhomogeneous Poisson process (same statistics as the reference's
 inter-arrival sampling, but static-shaped and vectorized), and the binwise
 weighting is a segment-sum.

@@ -154,17 +154,12 @@ def trace(soup: TriangleSoup, surfaces: Surface, source, receiver, key,
         pointing = positions - receiver
         az, el = angle_lut_indices(pointing, DIRECTIONAL_AZ, DIRECTIONAL_EL)
         vols = jnp.where(mask[:, None], volumes, 0.0)
+        # scatter-add: on a GPU colliding deposits sum in an order that
+        # changes from run to run (atomics), so histograms agree with the
+        # CPU to f32 rounding of each bin's sum, not bitwise
         return hist.at[bin_idx, az, el].add(vols, mode="drop")
 
-    from wayverb_tpu.raytracer.mt_pallas import PallasTriangles
-    if isinstance(accel, PallasTriangles):
-        from wayverb_tpu.raytracer.mt_pallas import (mt_intersection,
-                                                     mt_line_of_sight)
-        intersect = lambda p, d, ex: mt_intersection(      # noqa: E731
-            p, d, accel, exclude_triangle=ex)
-        los = lambda a, b, ex: mt_line_of_sight(           # noqa: E731
-            a, b, accel, exclude_triangle=ex)
-    elif accel is not None:
+    if accel is not None:
         from wayverb_tpu.raytracer.accel import (grid_intersection,
                                                  grid_line_of_sight)
         intersect = lambda p, d, ex: grid_intersection(    # noqa: E731

@@ -1,6 +1,6 @@
 """Magnitude-only IIR design: fit an order-N filter to a target magnitude
 response. Host-side numpy float64 (setup path, like the reference's use of
-itpp's yulewalk); the resulting coefficients feed the device-side scan/Pallas
+itpp's yulewalk); the resulting coefficients feed the device-side scan
 filters.
 
 Algorithm (own construction, replacing itpp::yulewalk):

@@ -112,6 +112,10 @@ def apply_zero_phase_magnitude(signal, mag_fn):
     """FFT → multiply rfft bins by ``mag_fn(normalized_freq)`` → IFFT.
 
     ``signal``: (..., n).  Returns the same length (zero-phase, no delay).
+    On a GPU the transform is cuFFT, whose sums run in another order than
+    the CPU's: results agree to f32 rounding of those sums (the usual FFT
+    bound, of order log2(n)·2⁻²⁴ relative to the signal's norm), not
+    bitwise.
     """
     n = signal.shape[-1]
     bins = best_fft_length(n)

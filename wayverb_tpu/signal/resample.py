@@ -1,6 +1,6 @@
 """Sample-rate conversion via windowed-sinc interpolation.
 
-TPU-first replacement for the reference's libsamplerate call
+Vectorized replacement for the reference's libsamplerate call
 (``waveguide/src/config.cpp:29-56``): a Kaiser-windowed sinc interpolator as
 one batched gather + weighted reduction (static shapes, differentiable).
 Matches the reference's level convention of scaling the output by

@@ -4,7 +4,7 @@ The reference wires an observer/event system through the engine
 (``utilities/event.h``; 9-state enum in ``combined/engine.h:38-48``) for
 GUI progress and live visualisation, but has no timers or kernel profiling.
 Here: a minimal typed event hub, wall-clock phase timing, and a
-``jax.profiler`` trace helper for TPU timelines.
+``jax.profiler`` trace helper for device timelines.
 """
 
 from __future__ import annotations

@@ -1,12 +1,16 @@
 """ctypes bindings for the native setup runtime (native/wayverb_native.cpp).
 
-Builds on demand with g++ (cached); everything degrades gracefully to the
-pure-Python paths when no compiler is available.
+Built on demand with g++ into ``native/libwayverb_native.<hash>.so``, keyed
+on a hash of the source, so an edit to the source always rebuilds and a
+stale library is never loaded.  Everything degrades gracefully to the
+pure-Python setup paths when no compiler is available; ``status()`` says
+which path this process uses.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 from typing import Optional
@@ -16,24 +20,35 @@ import numpy as np
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libwayverb_native.so")
+_SRC = os.path.join(_NATIVE_DIR, "wayverb_native.cpp")
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_status = {"path": "python", "library": None, "built": False,
+           "error": None}
 
 
-def _build() -> bool:
-    src = os.path.join(_NATIVE_DIR, "wayverb_native.cpp")
-    if not os.path.exists(src):
-        return False
+def library_path() -> Optional[str]:
+    """Where the library for the current source lives (None: no source)."""
+    if not os.path.exists(_SRC):
+        return None
+    with open(_SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(_NATIVE_DIR, f"libwayverb_native.{digest}.so")
+
+
+def _build(lib_path: str) -> None:
+    # build under a private name, then rename: concurrent test workers
+    # never load a half-written library
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O3", "-fopenmp", "-shared", "-fPIC",
-             "-o", _LIB_PATH, src],
+            ["g++", "-O3", "-fopenmp", "-shared", "-fPIC", "-o", tmp, _SRC],
             check=True, capture_output=True, timeout=300)
-        return True
-    except Exception:
-        return False
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -41,12 +56,17 @@ def get_lib() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH):
-        if not _build():
-            return None
+    lib_path = library_path()
+    if lib_path is None:
+        _status["error"] = "no native source"
+        return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+        if not os.path.exists(lib_path):
+            _build(lib_path)
+            _status["built"] = True
+        lib = ctypes.CDLL(lib_path)
+    except (OSError, subprocess.SubprocessError) as exc:
+        _status["error"] = f"{type(exc).__name__}: {exc}"
         return None
     lib.wv_classify_inside.argtypes = [
         ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
@@ -58,8 +78,17 @@ def get_lib() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int32)]
     lib.wv_version.restype = ctypes.c_int
+    _status.update(path="native", library=lib_path)
     _lib = lib
     return _lib
+
+
+def status() -> dict:
+    """Which setup path this process uses: ``path`` is "native" or
+    "python"; ``built`` is True when this process compiled the library;
+    ``error`` says why the native path is off."""
+    get_lib()
+    return dict(_status)
 
 
 def _ptr(arr, ctype):

@@ -1,11 +1,11 @@
 """Region-based boundary update: boundary work as dense slice arithmetic.
 
-On TPU, element gathers/scatters cost ~8 ns each, so the compact
-gather-based boundary pass dominates the whole step (≈17 ms vs 0.5 ms of
-interior stencil at 224³).  For shoebox meshes every boundary node belongs
+Element gathers and scatters are far slower per element than a dense
+streaming pass, so a compact gather-based boundary pass can dominate the
+whole step.  For shoebox meshes every boundary node belongs
 to one of 26 rectangular regions — 6 faces (1D nodes), 12 edges (2D), 8
 corners (3D) — whose updates are expressible entirely as STATIC slices of
-the pressure fields: no gathers, no scatters, just small dynamic-slice DMAs.
+the pressure fields: no gathers, no scatters, just small dynamic slices.
 
 Each region is a contiguous block of nodes sharing the same inner-direction
 set and per-slot surface; the update follows exactly the same equations as

@@ -72,10 +72,9 @@ def _chunk_fn(structure, dims, regions, box_spec, source, receiver, carry,
         rstate, outputs = receiver.tap(cur_flat, rstate)
         if regions is not None:
             from wayverb_tpu.waveguide.box_boundary import apply_regions
-            from wayverb_tpu.waveguide.stencil_pallas import \
-                interior_step_auto
-            nxt = interior_step_auto(current, previous,
-                                     structure.interior_mask)
+            from wayverb_tpu.waveguide.stencil import interior_step
+            nxt = interior_step(current, previous,
+                                structure.interior_mask)
             nxt, bstate = apply_regions(nxt, current, previous,
                                         list(bstate), list(regions),
                                         structure.coef_b, structure.coef_a)

@@ -18,6 +18,28 @@ from wayverb_tpu.waveguide.descriptor import (DIRECTION_OFFSETS,
                                               MeshDescriptor)
 
 
+class SeqTapView:
+    """Sequential flat-field stand-in for replaying ``receiver.tap`` over a
+    (k,) row of pre-gathered pressures.
+
+    Receivers read the field with one or more ``field[idx]`` gathers whose
+    index arrays, concatenated in read order, equal ``tap_nodes()``; each
+    ``__getitem__`` hands out the next segment of the row.  The sharded
+    solvers gather the tap nodes across shards with one psum and replay the
+    receiver's arithmetic through this view.
+    """
+
+    def __init__(self, row):
+        self._row = row
+        self._pos = 0
+
+    def __getitem__(self, idx):
+        n = int(np.prod(np.shape(idx))) if np.ndim(idx) else 1
+        seg = self._row[self._pos:self._pos + n]
+        self._pos += n
+        return seg.reshape(np.shape(idx))
+
+
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass(frozen=True)
 class NodeReceiver:
@@ -35,7 +57,7 @@ class NodeReceiver:
 
     def tap_nodes(self):
         """Flat indices this receiver reads, in ``tap`` read order (the
-        box_mega kernel extracts exactly these per step)."""
+        sharded solvers gather exactly these per step, see ``SeqTapView``)."""
         return jnp.reshape(self.node_idx, (1,))
 
     def tap(self, field_flat, state):

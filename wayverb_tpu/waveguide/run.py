@@ -43,7 +43,7 @@ class Mesh:
     """Descriptor + device structure + bookkeeping for one scene.
 
     ``box_spec``: for shoebox scenes, the static geometry driving the fused
-    plane-boundary solver (box_fused.py) — the fast path on TPU.
+    plane-boundary solver (box_fused.py) — the fast shoebox path.
     ``regions``: the older gather-free region decomposition, kept as a
     second oracle for the plane path (box_boundary.py).
     """
@@ -67,24 +67,20 @@ class Mesh:
 
 def compute_mesh(soup: TriangleSoup, surface_absorption, spacing: float,
                  sample_rate: float, scene_box: Optional[Box] = None,
-                 anchor=None, align="auto") -> Mesh:
+                 anchor=None, align=None) -> Mesh:
     """Build a mesh for a scene.
 
     ``surface_absorption``: (S, bands) per-material absorption →
     per-material order-6 impedance filters fitted at the mesh rate.
     ``scene_box`` enables the analytic shoebox inside-test fast path.
-    ``align``: "auto" pads grid dims to TPU tile multiples on TPU backends
-    (the Pallas stencil requires it); pass None or a (ax, ay, az) tuple to
-    override.
+    ``align``: optional (ax, ay, az) multiples the grid dims are padded to
+    (the sharded solvers need x divisible by the device count).
     """
     from wayverb_tpu.core.geometry import scene_aabb
-    from wayverb_tpu.waveguide.descriptor import default_alignment
     aabb = scene_box if scene_box is not None else scene_aabb(soup)
     if anchor is None:
         anchor = tuple(np.asarray(aabb.centre()))
     adjusted = compute_adjusted_boundary(aabb, anchor, spacing)
-    if align == "auto":
-        align = default_alignment()
     desc = descriptor_for_box(adjusted, spacing, align=align)
 
     if scene_box is not None:
@@ -215,7 +211,7 @@ def run_waveguide_regions(structure: MeshStructure, dims, source, receiver,
     """
     from wayverb_tpu.waveguide.box_boundary import (apply_regions,
                                                     initial_region_states)
-    from wayverb_tpu.waveguide.stencil_pallas import interior_step_auto
+    from wayverb_tpu.waveguide.stencil import interior_step
 
     num_nodes = dims[0] * dims[1] * dims[2]
     order = structure.filter_order
@@ -229,7 +225,7 @@ def run_waveguide_regions(structure: MeshStructure, dims, source, receiver,
         cur_flat = source.inject(current.reshape(num_nodes), t)
         current = cur_flat.reshape(dims)
         rstate, outputs = receiver.tap(cur_flat, rstate)
-        nxt = interior_step_auto(current, previous, structure.interior_mask)
+        nxt = interior_step(current, previous, structure.interior_mask)
         nxt, states = apply_regions(nxt, current, previous, states,
                                     list(regions), structure.coef_b,
                                     structure.coef_a)
@@ -250,7 +246,7 @@ def run_waveguide_box(structure: MeshStructure, spec, source, receiver,
 
     The fastest solver: boundary work is one stacked plane update (pure
     JAX, differentiable) and the interior stencil + plane splice is one
-    Pallas kernel (jnp fallback off-TPU).  ``state_dtype`` optionally runs
+    fused elementwise pass (``box_fused.fused_step``).  ``state_dtype`` optionally runs
     the IIR filter state in a wider dtype than the field (the reference
     mandates double for filter state, ``cl/filter_structs.h:14``; the plane
     state is O(n²) so f64 costs little here).  ``kernel_inject=False``
@@ -280,10 +276,8 @@ def run_waveguide_box(structure: MeshStructure, spec, source, receiver,
             outputs)
     else:
         # unroll=4: the scan carry rotates (next, current) each step, which
-        # costs XLA a hidden field copy; unrolling lets consecutive steps
-        # alias the ping-pong buffers (measured on v5e at 224×224×256:
-        # 420 → 364 µs/step, 45% → 52% of HBM speed-of-light —
-        # tools/bench/fwd_variants.py)
+        # can cost a hidden field copy; unrolling lets consecutive steps
+        # alias the ping-pong buffers
         carry, outputs = jax.lax.scan(body, init, jnp.arange(num_steps),
                                       unroll=4)
     # the per-step check covers the boundary planes only (O(n²)); a NaN
@@ -309,23 +303,8 @@ _run_waveguide_regions_jit = jax.jit(
 
 def execute(mesh: Mesh, source, receiver, num_steps: int,
             dtype=jnp.float32, kernel_inject: bool = True) -> dict:
-    """Run the mesh with the fastest applicable boundary path.
-
-    On TPU, shoebox meshes whose field ping-pong fits in VMEM route to
-    the multi-step mega-kernel (box_mega.py, ~1.8× the HBM-roofline of
-    the streaming fused path); everything else falls through to the
-    round-3 paths unchanged.
-    """
-    if mesh.box_spec is not None and kernel_inject:
-        from wayverb_tpu.waveguide.box_mega import (mega_supported,
-                                                    run_waveguide_box_mega)
-        # kernel_inject=False is the documented escape hatch back to the
-        # XLA-injection path (exact signal-gradient semantics) — honour it.
-        if mega_supported(mesh.box_spec, source, receiver, dtype,
-                          filter_order=mesh.structure.filter_order):
-            return run_waveguide_box_mega(
-                mesh.structure, mesh.box_spec, source, receiver, num_steps,
-                dtype=dtype)
+    """Run the mesh with the fastest applicable boundary path: the fused
+    plane solver for shoeboxes, the weight-code solver otherwise."""
     if mesh.box_spec is not None:
         return _run_waveguide_box_jit(
             mesh.structure, mesh.box_spec, source, receiver, num_steps,
@@ -400,12 +379,12 @@ def canonical_multiband(mesh: Mesh, soup_surface_absorption, source_position,
     hrtf band-edge range [edge_b, edge_{b+1}] Hz.  Returns a list of
     ``postprocess.BandpassBand``.
 
-    TPU-first: the mesh, source and receiver are band-INDEPENDENT — only
+    The mesh, source and receiver are band-INDEPENDENT — only
     the flat (S, order+1) coefficient tables change — so the reference's
     serial per-band reruns (``canonical.h:156-175``) become one
     ``jax.vmap`` over the stacked tables (SURVEY §2.6 "vmap/pmap over
     bands"): the whole multiband solve is a single compiled scan whose
-    batch dimension fills the chip.  Under a ``device_mesh`` the band
+    batch dimension fills the device.  Under a ``device_mesh`` the band
     axis vmaps INSIDE shard_map over the sharded shoebox solver
     (collectives batch natively).  ``use_vmap=False`` forces the
     sequential loop; with the default the runner AUTO-falls back when
@@ -510,8 +489,6 @@ def canonical_multiband(mesh: Mesh, soup_surface_absorption, source_position,
         import dataclasses as dc2
         structure = dc2.replace(mesh.structure, coef_b=coef_b,
                                 coef_a=coef_a)
-        # the non-mega solver paths (the mega kernel manages its own
-        # host-side bookkeeping and is not vmappable)
         if mesh.box_spec is not None:
             res = run_waveguide_box(structure, mesh.box_spec, source,
                                     receiver, num_steps, dtype)

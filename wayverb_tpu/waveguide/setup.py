@@ -8,7 +8,7 @@ Node taxonomy (parity: reference ``mesh_setup_program.cpp``):
    through a face / edge / corner direction; impedance-filter update
  * outside   — ignored (pressure pinned to 0)
 
-TPU-first data layout: boundary nodes are extracted into COMPACT
+Data layout: boundary nodes are extracted into COMPACT
 struct-of-array form (B ≈ surface ∝ n², vs n³ air nodes), so the hot
 interior stencil stays a dense masked pass while the boundary pass is a
 small gather/compute/scatter.  The reference instead interleaves a per-node
@@ -59,7 +59,7 @@ class MeshStructure:
     coef_b: Any            # (S, order+1) f32 impedance numerators
     coef_a: Any            # (S, order+1) f32 impedance denominators
     # dense packed per-node neighbour-weight bitfield driving the fused
-    # general-mesh step (stencil_pallas.weighted_step): bit d (0..5) set
+    # general-mesh step (stencil.weighted_step): bit d (0..5) set
     # when neighbour d has weight >= 1, bit 6+d when weight == 2, bit 12 on
     # interior/reentrant nodes (subtract-previous term).  One int32 volume
     # replaces the (B, 6) flat neighbour gather of the slow path.

@@ -12,9 +12,8 @@ Physics (parity: reference ``waveguide/src/program.cpp``):
    (:150-174, filters.cpp), output discarded.
  * λ = 1/√3 (Courant number, :12-13); outside nodes stay at 0.
 
-TPU-first: the interior term is six jnp.rolls of a zero-padded field — XLA
-fuses them into one bandwidth-bound pass (a Pallas kernel with explicit VMEM
-blocking lives in ``stencil_pallas.py``); the irregular boundary work is a
+The interior term is six shifted views of a zero-padded field — XLA fuses
+them into one bandwidth-bound pass; the irregular boundary work is a
 compact gather → arithmetic → scatter, O(surface) not O(volume), instead of
 the reference's per-node switch.
 """
@@ -23,9 +22,13 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import jax
 import jax.numpy as jnp
+import numpy as np
+from jax.dtypes import float0
 
-from wayverb_tpu.waveguide.descriptor import COURANT, COURANT_SQ
+from wayverb_tpu.waveguide.descriptor import (COURANT, COURANT_SQ,
+                                              DIRECTION_OFFSETS)
 from wayverb_tpu.waveguide.setup import MeshStructure
 
 
@@ -55,12 +58,131 @@ def interior_step(current, previous, interior_mask):
     return (COURANT_SQ * _neighbor_sum(current) - previous) * interior_mask
 
 
+# ---------------------------------------------------------------------------
+# fused general-mesh step: weighted neighbour sum driven by a packed
+# per-node bitfield (MeshStructure.weight_code).  One dense pass yields the
+# interior update AND every boundary node's weighted neighbour sum (csw),
+# replacing a (B, 6) flat gather.
+#
+#   out[x] = λ²·Σ_d w_d(x)·p[x+e_d] − interior(x)·p⁻[x]
+#   w_d(x) = bit(d) + bit(6+d) of weight_code[x]   ∈ {0, 1, 2}
+#
+# Direction order d = 0..5 ↔ (−x, +x, −y, +y, −z, +z), matching
+# descriptor.DIRECTION_OFFSETS.
+
+_OPPOSITE = (1, 0, 3, 2, 5, 4)
+
+
+def _weight(weight_code, d, dtype):
+    return (((weight_code >> d) & 1)
+            + ((weight_code >> (6 + d)) & 1)).astype(dtype)
+
+
+def _shifted(field, d):
+    """field[x + e_d] with zero fill beyond the grid."""
+    off = DIRECTION_OFFSETS[d]
+    ax = int(np.argmax(np.abs(np.asarray(off))))
+    n = field.shape[ax]
+    src = [slice(None)] * 3
+    pad = [(0, 0)] * 3
+    if int(off[ax]) == 1:
+        src[ax] = slice(1, n)
+        pad[ax] = (0, 1)
+    else:
+        src[ax] = slice(0, n - 1)
+        pad[ax] = (1, 0)
+    return jnp.pad(field[tuple(src)], pad)
+
+
+def weighted_step_jnp(current, previous, weight_code):
+    """Forward of ``weighted_step`` (plain autodiff-able expression)."""
+    acc = jnp.zeros_like(current)
+    for d in range(6):
+        acc = acc + _weight(weight_code, d, current.dtype) * \
+            _shifted(current, d)
+    is_int = ((weight_code >> 12) & 1).astype(current.dtype)
+    return COURANT_SQ * acc - is_int * previous
+
+
+def _weighted_transpose(weight_code, g):
+    """cur̄ of ``weighted_step_jnp``: shift the product w_d·ḡ the other way
+    (a read at y+e_dd uses w_opp(dd) at the shifted site)."""
+    acc = jnp.zeros_like(g)
+    for dd in range(6):
+        acc = acc + _shifted(_weight(weight_code, _OPPOSITE[dd], g.dtype) * g,
+                             dd)
+    return COURANT_SQ * acc
+
+
+@jax.custom_vjp
+def weighted_step(current, previous, weight_code):
+    """Dense fused step: interior update + boundary csw in one pass.
+
+    The hand VJP keeps only ``weight_code`` as the residual (autodiff would
+    keep the six decoded weight fields)."""
+    return weighted_step_jnp(current, previous, weight_code)
+
+
+def _weighted_fwd(current, previous, weight_code):
+    return weighted_step(current, previous, weight_code), weight_code
+
+
+def _weighted_bwd(weight_code, g):
+    is_int = ((weight_code >> 12) & 1).astype(g.dtype)
+    return (_weighted_transpose(weight_code, g), -is_int * g,
+            np.zeros(weight_code.shape, dtype=float0))
+
+
+weighted_step.defvjp(_weighted_fwd, _weighted_bwd)
+
+
+def _halo_weights(weight_code, dtype):
+    """Weights of the −x read of local row 0 and the +x read of the last
+    row: the only reads that cross a shard boundary."""
+    return (_weight(weight_code[:1], 0, dtype),
+            _weight(weight_code[-1:], 1, dtype))
+
+
+def _weighted_sharded_jnp(current, previous, weight_code, halos):
+    out = weighted_step_jnp(current, previous, weight_code)
+    w0, w1 = _halo_weights(weight_code, current.dtype)
+    out = out.at[:1].add(COURANT_SQ * w0 * halos[0])
+    out = out.at[-1:].add(COURANT_SQ * w1 * halos[1])
+    return out
+
+
+@jax.custom_vjp
+def weighted_step_sharded(current, previous, weight_code, halos):
+    """``weighted_step`` for one x-shard of a decomposed grid.
+
+    ``halos``: (hlo, hhi) pair of (1, Y, Z) ``current`` rows at local
+    x = −1 / x = X from the neighbouring shards (zeros at the global grid
+    ends).  Linear in (current, previous, halos); hand VJP emits halo
+    cotangents so the shard_map ppermute transposes correctly."""
+    return _weighted_sharded_jnp(current, previous, weight_code, halos)
+
+
+def _weighted_sharded_fwd(current, previous, weight_code, halos):
+    return weighted_step_sharded(current, previous, weight_code,
+                                 halos), weight_code
+
+
+def _weighted_sharded_bwd(weight_code, g):
+    cur_bar, prev_bar, gcode = _weighted_bwd(weight_code, g)
+    w0, w1 = _halo_weights(weight_code, g.dtype)
+    ghalos = (COURANT_SQ * w0 * g[:1], COURANT_SQ * w1 * g[-1:])
+    return cur_bar, prev_bar, gcode, ghalos
+
+
+weighted_step_sharded.defvjp(_weighted_sharded_fwd, _weighted_sharded_bwd)
+
+
 def expand_boundary_coefficients(s: MeshStructure):
     """Per-node (B, 3, order+1) coefficient tables.
 
     Hoist this OUT of the time loop: the (S, o+1) → (B, 3, o+1) gather is
-    constant across a run, and on TPU doing it per step costs ~50 MB of
-    gather traffic each iteration.  Gradients w.r.t. ``coef_b``/``coef_a``
+    constant across a run, and doing it per step re-reads the tables every
+    iteration.  Gradients w.r.t. ``coef_b``/``coef_a``
     still flow (the gather transposes to one scatter-add per run).
     """
     return s.coef_b[s.b_slot_coef], s.coef_a[s.b_slot_coef]
@@ -72,7 +194,7 @@ def prepare_boundary_tables(s: MeshStructure, expanded=None):
     Everything here is constant across a run (but still a traced function
     of ``coef_b``/``coef_a`` so coefficient gradients flow); computing the
     divisions and the static ``cw`` once instead of per step removes
-    ~2/3 of the compact boundary pass's elementwise work on TPU.
+    most of the compact boundary pass's elementwise work.
     """
     bc, ac = expanded if expanded is not None \
         else expand_boundary_coefficients(s)                    # (B, 3, o+1)
@@ -134,8 +256,7 @@ def waveguide_step_reference(current, previous, filter_state,
 
     Kept as a parity oracle; ``waveguide_step`` below is the fast path.
     """
-    from wayverb_tpu.waveguide.stencil_pallas import interior_step_auto
-    nxt = interior_step_auto(current, previous, s.interior_mask)
+    nxt = interior_step(current, previous, s.interior_mask)
     flat_shape = current.shape[0] * current.shape[1] * current.shape[2]
     cur_flat = current.reshape(flat_shape)
     prev_flat = previous.reshape(flat_shape)
@@ -148,9 +269,9 @@ def waveguide_step(current, previous, filter_state, s: MeshStructure,
                    expanded=None):
     """One full mesh update (fused general path).
 
-    The dense weighted pass (``stencil_pallas.weighted_step``, driven by the
-    packed ``s.weight_code`` bitfield) yields the interior update AND every
-    boundary node's weighted neighbour sum in one kernel; the compact pass
+    The dense weighted pass (``weighted_step``, driven by the packed
+    ``s.weight_code`` bitfield) yields the interior update AND every
+    boundary node's weighted neighbour sum in one pass; the compact pass
     then only gathers one value per boundary node, advances the impedance
     filters, and scatters the corrected pressures — the (B, 6) neighbour
     gather of ``waveguide_step_reference`` disappears (VERDICT r2 #8; the
@@ -185,7 +306,6 @@ def waveguide_step_carried(current, previous, prev_b, filter_state,
 
     Returns (next_field, new_filter_state, bp) — carry ``bp`` forward.
     """
-    from wayverb_tpu.waveguide.stencil_pallas import weighted_step
     dense = weighted_step(current, previous, s.weight_code)
     flat_shape = current.shape[0] * current.shape[1] * current.shape[2]
     dense_flat = dense.reshape(flat_shape)
